@@ -1,12 +1,12 @@
 // Native support library: fast exact EDT oracles + zlib codec.
 //
 // This is the framework's CPU-side native runtime piece (validation oracles
-// and IO codecs); the TPU compute path is JAX/Pallas. Built as a plain C
+// and IO codecs); the device compute path is JAX/Pallas. Built as a plain C
 // ABI shared library loaded via ctypes (sdf_tools_tpu/native.py).
 //
 // Contents:
 //  * edt_exact_i64: exact squared EDT via per-axis lower-envelope passes
-//    (Felzenszwalb/Huttenlocher), used to validate the TPU kernels at sizes
+//    (Felzenszwalb/Huttenlocher), used to validate the device kernels at sizes
 //    far beyond the NumPy oracle (512^3 runs in seconds).
 //  * edt_reference_i64: behavioral re-implementation of the reference's
 //    bucket-queue brushfire (/root/reference/include/sdf_tools/

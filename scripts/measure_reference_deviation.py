@@ -6,7 +6,7 @@ relaxation that can only err UPWARD (docs/NOTES.md §2). This measures the
 rate and magnitude at the BASELINE scene scales (VERDICT round-1 item 6);
 results go to docs/RESULTS.md.
 
-Runs entirely on host (native C++ lib) — safe while the TPU is busy.
+Runs entirely on the host (native C++ lib).
 """
 import sys
 import time

@@ -1,8 +1,8 @@
-"""tpu-sdf: TPU-native differentiable signed-distance-field engine.
+"""sdf_tools_tpu: a differentiable signed-distance-field engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-UM-ARM-Lab/sdf_tools (reference mounted at /root/reference). See SURVEY.md,
-docs/ARCHITECTURE.md, docs/PARITY.md.
+A JAX/XLA/Pallas re-design of the capabilities of UM-ARM-Lab/sdf_tools; it
+runs on the GPU (CUDA) and on the CPU. See docs/ARCHITECTURE.md and
+docs/PARITY.md.
 """
 
 from .grid import (

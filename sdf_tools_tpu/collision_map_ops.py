@@ -79,7 +79,7 @@ def extract_component_surfaces_map(
     """Reference-shaped ``ExtractComponentSurfaces`` result: a map keyed by
     component id with that component's surface voxel indices [k, 3]
     (``collision_map.cpp:697-754`` returns map<component, surface index map>).
-    The dense mask from :func:`extract_component_surfaces` is the TPU-native
+    The dense mask from :func:`extract_component_surfaces` is the device
     form; this is the host-side API-parity view."""
     surf = np.asarray(extract_component_surfaces(cmap, component_types))
     comp = np.asarray(cmap.component)
@@ -93,7 +93,7 @@ def extract_connected_components(cmap: CollisionMap) -> Dict[int, np.ndarray]:
     """Per-component voxel index lists (``collision_map.cpp:756-778``).
 
     Host utility: returns {component_id: [k, 3] int array}. The dense label
-    array ``cmap.component`` is the TPU-native representation; use this only
+    array ``cmap.component`` is the device representation; use this only
     at API boundaries.
     """
     comp = np.asarray(cmap.component)

@@ -1,6 +1,6 @@
 """Voxel-grid containers as JAX pytrees.
 
-TPU-native replacement for the reference's ``VoxelGrid<T>`` class hierarchy
+JAX replacement for the reference's ``VoxelGrid<T>`` class hierarchy
 (``arc_utilities/voxel_grid.hpp`` consumed via
 ``/root/reference/include/sdf_tools/sdf.hpp:12``): instead of mutable C++
 objects we use frozen dataclass pytrees wrapping dense ``jnp`` arrays plus
@@ -59,12 +59,10 @@ def make_origin_transform(translation, rotation=None, dtype=jnp.float32) -> Arra
 
 
 def rotate_points(rot: Array, p: Array) -> Array:
-    """p @ rot.T for [..., 3] points WITHOUT a matmul: on TPU, XLA may
-    lower small f32 matmuls onto the MXU at the DEFAULT (bfloat16) matmul
-    precision, quantizing ray directions/origins to 8 mantissa bits —
-    measured to displace rays by ~0.2-0.5 cells at t~20 grid widths and
-    cause ~1% hit/miss flips in the renderer. Explicit elementwise math
-    always runs on the VPU in full f32."""
+    """p @ rot.T for [..., 3] points WITHOUT a matmul: at the default matmul
+    precision a GPU may run an f32 matmul in TF32 (10 mantissa bits), which
+    displaces far ray points and flips hit/miss decisions at surfaces.
+    Explicit elementwise math always runs in full f32."""
     rot = rot.astype(p.dtype)
     return jnp.stack(
         [
@@ -163,7 +161,7 @@ class GridMeta:
 class SdfGrid:
     """A signed distance field: f32 values + metadata.
 
-    TPU-native analogue of ``sdf_tools::SignedDistanceField``
+    JAX analogue of ``sdf_tools::SignedDistanceField``
     (``/root/reference/include/sdf_tools/sdf.hpp:20``). ``values[x, y, z]``
     is the signed distance (meters) at the cell center; positive outside
     obstacles, negative inside (filled cells are at most ``-resolution``
@@ -198,7 +196,7 @@ class SdfGrid:
         i = jnp.asarray(indices)
         ok = self.meta.index_in_bounds(i)
         ci = jnp.clip(i, 0, jnp.asarray(self.shape, i.dtype) - 1)
-        # flat gather: TPU lowers 3-D advanced indexing catastrophically
+        # flat gather (1-D indexing, not 3-D advanced indexing)
         _, ny, nz = self.shape
         flat = (ci[..., 0] * ny + ci[..., 1]) * nz + ci[..., 2]
         v = self.values.reshape(-1)[flat]
@@ -212,7 +210,7 @@ class SdfGrid:
 class CollisionMap:
     """Occupancy grid + connected-component labels.
 
-    TPU-native analogue of ``sdf_tools::CollisionMapGrid``
+    JAX analogue of ``sdf_tools::CollisionMapGrid``
     (``/root/reference/include/sdf_tools/collision_map.hpp:34``). The
     reference stores ``COLLISION_CELL {float occupancy; uint32 component}``
     per voxel; we store them as two parallel arrays (structure-of-arrays is
@@ -264,7 +262,7 @@ class CollisionMap:
 class TaggedCollisionMap:
     """Tagged-object collision map: occupancy + component + object id + convex segment.
 
-    TPU-native analogue of ``sdf_tools::TaggedObjectCollisionMapGrid``
+    JAX analogue of ``sdf_tools::TaggedObjectCollisionMapGrid``
     (``/root/reference/include/sdf_tools/tagged_object_collision_map.hpp:45``),
     cell struct at ``:22-43``.
     """

@@ -1,984 +1,254 @@
-"""Pallas TPU kernels for the parabolic-envelope EDT pass.
+"""Pallas (Triton route) kernel for the parabolic-envelope EDT pass on Hopper.
 
-The envelope pass (out[i] = min_j f[j] + (i-j)^2 along one axis) is computed
-by the iterated odd-weight 3-tap min-plus relaxation (see ops/edt.py for the
-exactness argument: i^2 = 1+3+...+(2i-1), values non-increasing, weights
-increasing => per-tile quiescence certifies convergence).
+The envelope pass computes, along one axis of an int32 volume,
 
-Kernel design (the reason this beats the XLA stencil by the memory roofline):
-  * The scanned axis is kept WHOLE inside VMEM; the grid tiles only the two
-    orthogonal axes. Dependencies grow strictly along the scanned axis, so a
-    tile needs NO halo — each program loads its block from HBM exactly once,
-    relaxes in VMEM until ITS OWN quiescence (data-adaptive iteration count),
-    and writes back once. HBM traffic per pass = one read + one write.
-  * Shifts along the scanned axis are sublane/lane rolls with an iota edge
-    mask — pure VPU work, zero divergence.
+    out[i] = min_j f[j] + (i - j)^2
 
-Two kernel variants cover the two memory layouts:
-  * axis=1 of [X, Y, Z]: scanned axis on sublanes (block [xt, Y, zt]).
-  * axis=2 of [X, Y, Z]: scanned axis on lanes (block [xt, yt, Z]).
-axis=0 is not needed: squared_edt orders its passes so only axes 1 and 2
-run the envelope (axis 0 uses the cummax line pass).
+exactly (the second and third passes of the separable EDT; ``ops/edt.py``).
+The plain XLA version (``edt.envelope_pass_stencil``) relaxes the WHOLE
+volume once per unit of distance: each iteration reads and writes every
+cell and reduces a convergence flag over all of them, for as many
+iterations as the volume's largest winning distance.
+
+Kernel design:
+  * One program owns a tile of whole lines: the scanned axis is never split,
+    so no state crosses programs and nothing carries between them.
+  * The tile is relaxed by a direct windowed minimum in order of increasing
+    offset s = 1, 2, ...: ``acc[i] = min(acc[i], f[i-s] + s^2, f[i+s] + s^2)``
+    with the shifted values read from the immutable input (L1/L2 resident
+    after the first touch), so there is no in-kernel write-back and no
+    barrier.
+  * Per-tile exact early exit: a source further than s from cell i costs at
+    least ``min_line(f) + (s+1)^2``, so once every cell of the tile has
+    ``acc - min_line(f) <= (s+1)^2`` no later offset can improve it. The
+    tile's work is its own largest remaining distance, not the volume's.
+  * ``SHIFTS`` offsets run between two such checks (the check is a
+    reduction over the whole tile).
+  * The two-field variants relax the filled and the free field in one
+    program; the last-axis variant writes the signed f32 distance as its
+    epilogue (one f32 write instead of two int32 fields and a separate
+    combine pass).
+
+Layouts: the array is viewed as [A, n, B] around the scanned axis. For the
+last axis (B == 1) a tile is [lines, n] with lines contiguous in memory along
+its minor dim; otherwise a tile is [n, B-chunk], with the contiguous B axis
+minor, so every load of the tile is coalesced.
+
+``interpret=True`` runs the same kernel in the Pallas interpreter (CPU
+tests); the compiled route is Triton, for the GPU only.
 """
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 INF_D2 = 1 << 29  # python int: kernels must not capture traced constants
 
-# Generalized (2k+1)-tap schedule (docs/NOTES.md §14a): weights
-# w_t(s) = s^2 + 2|s|k(t-1) are sound AND complete for any tap width k, so T
-# steps resolve every source within distance k*T exactly. Arithmetic work per
-# unit distance is unchanged (2 rolls + mins per tap), but one k-tap step
-# amortizes the while-loop bookkeeping, quiescence reduce and roll latency
-# over k units, and all 2k rolls issue from the SAME input (ILP) instead of
-# forming a serial chain. k=1 is the classic odd-weight 1,3,5,... member.
-# Measured at 512^3 (scripts/bench_r5_ktap.py, docs/ROUND5.md): envelope
-# total 286 -> ~210-220 ms, monotone to k~12-16, saturating after (the free
-# field's small distances turn extra tap width into overshoot); tree-min
-# candidate reduction and pad-based edge handling both measured slower;
-# mask hoisting is a wash (Mosaic LICM). Default: k=12, serial, masks.
-_ENVELOPE_K = int(os.environ.get("SDFT_ENVELOPE_K", "12"))
+# Cells per program tile (powers of two; a tile always holds whole lines, so
+# lines longer than the tile get one line per program). Swept at 512^3 on an
+# H100 (scripts/tune_envelope.py; PERF.md): the strided layout wants wide
+# rows of lines for coalescing, the contiguous layout wants few lines per
+# tile so that each tile's early exit follows its own lines.
+TILE_STRIDED = 8192
+TILE_CONTIGUOUS = 512
 
-# Tap width for the FREE field inside the fused dual-field kernel: its
-# winning distances are small (inside-obstacle depths, Dmax ~8-59 on the
-# bench scene), so a narrow schedule avoids paying a wide step plus its
-# 2k-roll quiescence certificate on Dmax~8 tiles. Swept on-chip; see
-# NOTES §15 (dual-kernel addendum).
-_ENVELOPE_K_FREE = int(os.environ.get("SDFT_ENVELOPE_K_FREE", "4"))
+# Offsets relaxed between two tile-wide exit checks.
+SHIFTS = 4
 
-# Single-sided INF pad along the scanned axis: rolls by |s| <= pad wrap
-# through the pad region instead of the opposite line end, so the 2k
-# per-step edge-mask selects collapse to ONE pad-restore select per step.
-# Measured consistently ~2-4% SLOWER than masks (the selects fuse; the pad
-# inflates every roll) — kept for the record, off by default.
-_ENVELOPE_PAD = os.environ.get("SDFT_ENVELOPE_PAD", "0") not in ("0", "false")
+# Warps per program.
+NUM_WARPS = 8
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
 
 
 def _out_struct(x, shape, dtype):
     """ShapeDtypeStruct carrying the input's varying-manual-axes type so the
-    kernels compose with shard_map(check_vma=True) (sharded EDT path)."""
-    try:
-        vma = jax.typeof(x).vma
-    except Exception:
-        vma = None
+    kernel composes with shard_map(check_vma=True) (sharded EDT paths)."""
+    vma = jax.typeof(x).vma
     if vma:
         return jax.ShapeDtypeStruct(shape, dtype, vma=vma)
     return jax.ShapeDtypeStruct(shape, dtype)
 
-# Iterations per quiescence check: checking costs a full-tile reduce, so
-# batch a few relaxation steps between checks.
-_CHECK_EVERY = 8
 
-# Per-block byte budget (input block; ~6-8 live copies fit in 16MB VMEM).
-# 256KB measured best at 512^3 (vs 1MB: filled y+z 294.9 -> 233.8 ms): the
-# envelope's adaptive iteration count is the MAX winning distance over the
-# tile's lines, so fewer lines per tile track the per-line distribution more
-# tightly (scripts/bench_r4_experiments.py sweep; 128KB regresses — grid
-# overhead wins back the adaptivity gain).
-_BLOCK_BYTES = 256 * 1024
-
-# The line pass is LATENCY-bound (1022 sequential one-row steps whose cost
-# is ~125 ns regardless of row width), so its blocks should be as wide as
-# VMEM allows: 4x wider rows -> 4x fewer blocks at the same per-step cost
-# (measured 32.5 ms -> ~8 ms per field at 512^3).
-_LINE_BLOCK_BYTES = 8 * 1024 * 1024
-
-
-def _pvary_like(x, ref):
-    """Reattach mesh-varying axes lost by primitives (pltpu.roll) when the
-    kernel runs in interpret mode inside shard_map(check_vma=True)."""
-    try:
-        want = jax.typeof(ref).vma
-        have = jax.typeof(x).vma
-    except Exception:
-        return x
-    missing = tuple(a for a in want if a not in have)
-    if missing:
-        x = jax.lax.pvary(x, missing)
-    return x
+def _geometry(shape, axis: int, tile: int):
+    """(n, B, R, C, pdim, n_lines, grid) of the [A, n, B] tiling."""
+    n = shape[axis]
+    A = int(np.prod(shape[:axis], dtype=np.int64))
+    B = int(np.prod(shape[axis + 1 :], dtype=np.int64))
+    tn = _next_pow2(n)
+    if tile is None:
+        tile = TILE_CONTIGUOUS if B == 1 else TILE_STRIDED
+    if tile <= 0 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    if B == 1:
+        # tile [lines, n]: positions on the minor (contiguous) dim
+        R, C, pdim = max(1, tile // tn), tn, 1
+        grid = (pl.cdiv(A, R),)
+    else:
+        # tile [n, B-chunk]: the contiguous B axis on the minor dim
+        R, C, pdim = tn, max(1, min(tile // tn, _next_pow2(B))), 0
+        grid = (A * pl.cdiv(B, C),)
+    return n, B, R, C, pdim, A * B, grid
 
 
-def _roll_shift(d, axis: int, shift: int, n: int, mask):
-    """d shifted by `shift` along `axis` with INF fill (no wraparound)."""
-    rolled = pltpu.roll(d, shift=shift % n, axis=axis)
-    return _pvary_like(jnp.where(mask, INF_D2, rolled), d)
+def _relax(f_ref, flat, valid, i, n: int, stride: int, pdim: int, shifts: int):
+    """Exact envelope of the tile at flat indices ``flat`` (see module doc)."""
+    f = pltriton.load(f_ref.at[flat], mask=valid, other=INF_D2)
+    # per-line minimum along the scanned axis (invalid cells read INF)
+    fmin = jnp.min(f, axis=pdim, keepdims=True)
+
+    def cond(state):
+        return jnp.logical_not(state[2])
+
+    def body(state):
+        s, acc, _ = state
+        for u in range(1, shifts + 1):
+            sh = s + u
+            up = pltriton.load(
+                f_ref.at[flat - sh * stride], mask=valid & (i >= sh), other=INF_D2
+            )
+            dn = pltriton.load(
+                f_ref.at[flat + sh * stride], mask=valid & (i + sh < n), other=INF_D2
+            )
+            acc = jnp.minimum(acc, jnp.minimum(up, dn) + sh * sh)
+        s = s + shifts
+        gap = jnp.max(jnp.where(valid, acc - fmin, 0))
+        done = (gap <= (s + 1) * (s + 1)) | (s >= n - 1)
+        return s, acc, done
+
+    _, acc, _ = lax.while_loop(cond, body, (jnp.int32(0), f, jnp.bool_(False)))
+    return acc
 
 
 def _envelope_kernel(
-    axis: int, n: int, k: int, check_every: int, pad: int, tree: bool,
-    hoist: bool, d_ref, out_ref,
+    n: int, B: int, R: int, C: int, pdim: int, n_lines: int, shifts: int,
+    n_fields: int, combine: bool, *refs,
 ):
-    """Relax out_ref[:] (initialized from d_ref) to the exact envelope.
-
-    (2k+1)-tap generalized odd-weight schedule w_t(s) = s^2 + 2|s|k(t-1)
-    (NOTES §14a): sound (telescoping-square bound over any path) and complete
-    (max-speed-first path delivers distance qk+r exactly), so step T resolves
-    every source within distance k*T. Early exit is the same certificate as
-    k=1: values are non-increasing and weights strictly increase in t, so one
-    quiescent step implies all later steps are quiescent. Within a step every
-    tap reads the START-of-step field (in-step chaining would compose two
-    same-t taps and undercut true distances).
-
-    ``pad > 0`` appends `pad` INF cells after the line end: rolls by
-    |s| <= pad then wrap through the pad region instead of the opposite line
-    end, so no per-tap edge masks are needed — only one pad-restore select
-    per step (pads must read INF at every step's input; a relaxed pad value
-    rolled back in would encode a wrap-around path).
-    """
-    if not pad and not tree and not hoist:
-        # production default: ONE copy of the relaxation loop, shared with
-        # the dual/combine kernels (min is associative+commutative on
-        # int32, so the interleaved candidate reduction is bit-identical
-        # to the collect-then-reduce form below)
-        out_ref[:] = _relax_to_envelope(d_ref[:], axis, n, k, check_every)
+    """One tile of whole lines for ``n_fields`` fields; with ``combine``
+    (two fields) the epilogue writes sqrt(a)*res - sqrt(b)*res in f32, the
+    op sequence of ``edt.d2_to_distance(a) - edt.d2_to_distance(b)``."""
+    t = pl.program_id(0)
+    i = lax.broadcasted_iota(jnp.int32, (R, C), pdim)
+    l = lax.broadcasted_iota(jnp.int32, (R, C), 1 - pdim)
+    if B == 1:
+        line = t * R + l
+        flat = line * n + i
+        line_ok = line < n_lines
+        stride = 1
+    else:
+        nb = pl.cdiv(B, C)
+        a = t // nb
+        b = (t % nb) * C + l
+        flat = a * (n * B) + i * B + b
+        line_ok = b < B
+        stride = B
+    valid = line_ok & (i < n)
+    if combine:
+        res_ref, fa_ref, fb_ref, out_ref = refs
+        da = _relax(fa_ref, flat, valid, i, n, stride, pdim, shifts)
+        db = _relax(fb_ref, flat, valid, i, n, stride, pdim, shifts)
+        res = pltriton.load(res_ref.at[0])
+        va = jnp.sqrt(jnp.where(da >= INF_D2, jnp.inf, da.astype(jnp.float32)))
+        vb = jnp.sqrt(jnp.where(db >= INF_D2, jnp.inf, db.astype(jnp.float32)))
+        pltriton.store(out_ref.at[flat], va * res - vb * res, mask=valid)
         return
-    d0 = d_ref[:]
-    idx = lax.broadcasted_iota(jnp.int32, d0.shape, axis)
-    if pad:
-        pshape = list(d0.shape)
-        pshape[axis] = pad
-        d0 = jnp.concatenate(
-            [d0, jnp.full(pshape, INF_D2, d0.dtype)], axis=axis
-        )
-        idx = lax.broadcasted_iota(jnp.int32, d0.shape, axis)
-        pad_mask = idx >= n
-        nn = n + pad
-    else:
-        nn = n
-    # edge masks hoisted out of the relaxation loop (2k loop-constant arrays
-    # in VMEM) vs recomputed per step from the iota (2k compares per step)
-    masks = (
-        [(idx < s, idx >= n - s) for s in range(1, k + 1)]
-        if (hoist and not pad)
-        else None
-    )
-
-    def cond(state):
-        t, _, done = state
-        # after T = t-1 completed steps the schedule has resolved distance
-        # k*T; stop once that covers the whole line
-        return jnp.logical_and(jnp.logical_not(done), (t - 1) * k <= n)
-
-    def body(state):
-        t, d, _ = state
-
-        def one(j, dd):
-            tt = t + j  # 1-based global step index
-            # all 2k rolls read the START-of-step field (in-step chaining
-            # would compose two same-t taps and undercut true distances),
-            # so the candidates are independent: reduce them as a MIN TREE
-            # (depth log2 k) instead of a serial k-long acc chain
-            cands = []
-            for s in range(1, k + 1):
-                c = s * s + 2 * s * k * (tt - 1)
-                if pad:
-                    up = _pvary_like(
-                        pltpu.roll(dd, shift=s % nn, axis=axis), dd
-                    )
-                    dn = _pvary_like(
-                        pltpu.roll(dd, shift=(-s) % nn, axis=axis), dd
-                    )
-                else:
-                    mlo, mhi = masks[s - 1] if masks else (idx < s, idx >= n - s)
-                    up = _roll_shift(dd, axis, s, nn, mlo)
-                    dn = _roll_shift(dd, axis, -s, nn, mhi)
-                cands.append(jnp.minimum(up, dn) + c)
-            cands.append(dd)
-            if tree:
-                while len(cands) > 1:
-                    nxt = [
-                        jnp.minimum(cands[i], cands[i + 1])
-                        for i in range(0, len(cands) - 1, 2)
-                    ]
-                    if len(cands) % 2:
-                        nxt.append(cands[-1])
-                    cands = nxt
-                acc = cands[0]
-            else:
-                acc = cands[-1]
-                for cnd in cands[:-1]:
-                    acc = jnp.minimum(acc, cnd)
-            if pad:
-                acc = jnp.where(pad_mask, INF_D2, acc)
-            return acc
-
-        new_d = lax.fori_loop(0, check_every, one, d)
-        done = jnp.all(new_d == d)
-        return t + check_every, new_d, done
-
-    _, d_final, _ = lax.while_loop(
-        cond, body, (jnp.int32(1), d0, jnp.array(False))
-    )
-    if pad:
-        out_ref[:] = lax.slice_in_dim(d_final, 0, n, axis=axis)
-    else:
-        out_ref[:] = d_final
+    ins, outs = refs[:n_fields], refs[n_fields:]
+    for f_ref, o_ref in zip(ins, outs):
+        d = _relax(f_ref, flat, valid, i, n, stride, pdim, shifts)
+        pltriton.store(o_ref.at[flat], d, mask=valid)
 
 
-def _line_pass_kernel(n: int, square: bool, mask_ref, out_ref):
-    """Binary line pass along axis 0 of block [X, yt, zt]: exact distance to
-    the nearest seed along x (squared int32 with INF_D2 sentinel when
-    ``square``, else linear with the 1<<24 sentinel `edt.line_distance_to_
-    seed` uses — the sharded line pass combines boundary summaries on the
-    LINEAR distance before squaring). Two sequential sweeps over the major
-    dim — each step is one [yt, zt] vector op, so the whole pass is a
-    single HBM read+write."""
-    BIG = n  # any real line distance is <= n-1
-
-    d0 = jnp.where(mask_ref[:] != 0, 0, BIG)
-    out_ref[:] = d0
-
-    def fwd(t, _):
-        prev = out_ref[t - 1]
-        out_ref[t] = jnp.minimum(out_ref[t], prev + 1)
-        return 0
-
-    lax.fori_loop(1, n, fwd, 0)
-
-    def bwd(k, _):
-        t = n - 2 - k
-        nxt = out_ref[t + 1]
-        out_ref[t] = jnp.minimum(out_ref[t], nxt + 1)
-        return 0
-
-    lax.fori_loop(0, n - 1, bwd, 0)
-    d = out_ref[:]
-    if square:
-        out_ref[:] = jnp.where(d >= BIG, INF_D2, d * d)
-    else:
-        out_ref[:] = jnp.where(d >= BIG, 1 << 24, d)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "square"))
-def line_pass_pallas(
-    mask: jax.Array, interpret: bool = False, square: bool = True
-) -> jax.Array:
-    """Line distance along axis 0 of a 3D bool/int mask (Pallas); squared
-    with INF_D2 sentinel by default, linear with the 1<<24 sentinel when
-    ``square=False`` (sharded boundary combine)."""
-    X, Y, Z = mask.shape
-    if Z == 1 and Y > 1:
-        # 2D grids: put the non-trivial axis on lanes (see envelope note)
-        out = line_pass_pallas(mask.reshape(X, 1, Y), interpret, square)
-        return out.reshape(X, Y, 1)
-    zt = _lane_tile(Z)
-    # second-to-last block dim must be a multiple of 8 (or the full axis)
-    yt_target = max(1, _LINE_BLOCK_BYTES // (X * zt * 4))
-    if Y % 8 == 0 and yt_target >= 8:
-        yt = _pick_tile(Y // 8, yt_target // 8) * 8
-    else:
-        yt = Y if Y < 8 or Y % 8 != 0 else 8
-    grid = (Y // yt, Z // zt)
-    block = (X, yt, zt)
-    index_map = lambda i, j: (0, i, j)
-    kernel = functools.partial(_line_pass_kernel, X, square)
-    # in+out double-buffered = 4 live block copies; raise the scoped-VMEM
-    # limit (default 16MB) accordingly — v5e has 128MB physical VMEM
-    vmem_bytes = min(100 * 1024 * 1024, 6 * X * yt * zt * 4)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM),
-        out_shape=_out_struct(mask, mask.shape, jnp.int32),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(mask.astype(jnp.int32))
-
-
-def _relax_to_envelope(d0, axis: int, n: int, k: int, check_every: int):
-    """Relax `d0` to the exact envelope along `axis` with the (2k+1)-tap
-    schedule and the per-tile quiescence exit — the shared body of the
-    single/dual/combine envelope kernels (see `_envelope_kernel` for the
-    exactness argument)."""
-    idx = lax.broadcasted_iota(jnp.int32, d0.shape, axis)
-
-    def cond(state):
-        t, _, done = state
-        return jnp.logical_and(jnp.logical_not(done), (t - 1) * k <= n)
-
-    def body(state):
-        t, d, _ = state
-
-        def one(j, dd):
-            tt = t + j
-            acc = dd
-            for s in range(1, k + 1):
-                c = s * s + 2 * s * k * (tt - 1)
-                up = _roll_shift(dd, axis, s, n, idx < s)
-                dn = _roll_shift(dd, axis, -s, n, idx >= n - s)
-                acc = jnp.minimum(acc, jnp.minimum(up, dn) + c)
-            return acc
-
-        new_d = lax.fori_loop(0, check_every, one, d)
-        done = jnp.all(new_d == d)
-        return t + check_every, new_d, done
-
-    _, d_final, _ = lax.while_loop(
-        cond, body, (jnp.int32(1), d0, jnp.array(False))
-    )
-    return d_final
-
-
-def _envelope_dual_kernel(
-    axis: int, n: int, ka: int, kb: int, check_every: int,
-    da_ref, db_ref, oa_ref, ob_ref,
-):
-    """Two independent envelope relaxations (filled + free field) in ONE
-    kernel: per tile, phase A relaxes field a to quiescence with tap width
-    ``ka``, then phase B relaxes field b with ``kb``.
-
-    Why fuse (NOTES §15): the free field's standalone envelope pass is
-    launch/HBM/minimum-steps-bound (~46-54 ms flat in k at 512^3 against a
-    ~7 ms compute floor) — its distances are tiny, so the pass cost is one
-    grid launch + one HBM read/write + 1-2 relaxation steps. Sharing the
-    launch, the grid scheduling and the DMA pipeline with the filled
-    field's pass leaves only those 1-2 steps of vector work. Total vector
-    work is EXACTLY the sum of the two single-field kernels (sequential
-    phases, no lockstep waste); the per-field tap widths let the free
-    field run a narrow schedule (its Dmax is small, so a wide step plus
-    its 2k-roll quiescence certificate is pure overshoot).
-    """
-    oa_ref[:] = _relax_to_envelope(da_ref[:], axis, n, ka, check_every)
-    ob_ref[:] = _relax_to_envelope(db_ref[:], axis, n, kb, check_every)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("axis", "interpret", "ka", "kb", "check_every")
-)
-def envelope_dual_pallas(
-    fa: jax.Array, fb: jax.Array, axis: int, interpret: bool = False,
-    ka: int | None = None, kb: int | None = None,
-    check_every: int | None = None,
-):
-    """(out_a, out_b): exact envelopes of two fields along `axis` from one
-    fused kernel launch (see `_envelope_dual_kernel`). Semantically
-    identical to two `envelope_pass_pallas` calls."""
-    if ka is None:
-        ka = _ENVELOPE_K
-    if kb is None:
-        kb = _ENVELOPE_K_FREE
-    if check_every is None:
-        check_every = 1
-    if fa.shape != fb.shape:
-        raise ValueError((fa.shape, fb.shape))
-    X, Y, Z = fa.shape
-    n = fa.shape[axis]
-    if n == 1:
-        return fa, fb
-    if axis == 1 and Z == 1:
-        oa, ob = envelope_dual_pallas(
-            fa.reshape(X, 1, Y), fb.reshape(X, 1, Y), 2, interpret, ka, kb,
-            check_every,
-        )
-        return oa.reshape(X, Y, 1), ob.reshape(X, Y, 1)
-    if axis == 2 and Y == 1 and X > 1:
-        oa, ob = envelope_dual_pallas(
-            fa.reshape(1, X, Z), fb.reshape(1, X, Z), 2, interpret, ka, kb,
-            check_every,
-        )
-        return oa.reshape(X, 1, Z), ob.reshape(X, 1, Z)
-    if axis == 1:
-        zt = _lane_tile(Z)
-        xt = _pick_tile(X, max(1, _BLOCK_BYTES // (Y * zt * 4)))
-        grid = (X // xt, Z // zt)
-        block = (xt, Y, zt)
-        index_map = lambda i, j: (i, 0, j)
-    elif axis == 2:
-        yt = 8 if Y % 8 == 0 else Y
-        xt = _pick_tile(X, max(1, _BLOCK_BYTES // (yt * Z * 4)))
-        grid = (X // xt, Y // yt)
-        block = (xt, yt, Z)
-        index_map = lambda i, j: (i, j, 0)
-    else:
-        raise ValueError("envelope_dual_pallas supports axis 1 or 2")
-    spec = pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
+def _call(fields, axis, interpret, tile, shifts, num_warps, resolution=None):
+    shape = fields[0].shape
+    for f in fields:
+        if f.shape != shape:
+            raise ValueError(f"field shapes differ: {[g.shape for g in fields]}")
+    if not -len(shape) <= axis < len(shape):
+        raise ValueError(f"axis {axis} out of range for shape {shape}")
+    axis %= len(shape)
+    size = int(np.prod(shape, dtype=np.int64))
+    if size >= 2**31:
+        raise ValueError(f"volume of {size} cells exceeds int32 indexing")
+    shifts = SHIFTS if shifts is None else shifts
+    n, B, R, C, pdim, n_lines, grid = _geometry(shape, axis, tile)
+    combine = resolution is not None
     kernel = functools.partial(
-        _envelope_dual_kernel, axis, n, ka, kb, check_every
+        _envelope_kernel, n, B, R, C, pdim, n_lines, shifts, len(fields), combine
     )
-    phys_block = list(block)
-    phys_block[1] = max(8, phys_block[1])
-    phys_bytes = 4 * phys_block[0] * phys_block[1] * phys_block[2]
-    kmax = max(ka, kb)
-    vmem_bytes = min(
-        100 * 1024 * 1024,
-        max(24 * 1024 * 1024, phys_bytes * 2 * (8 + 2 * kmax)),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[spec, spec],
-        out_specs=[spec, spec],
-        out_shape=[_out_struct(fa, fa.shape, jnp.int32)] * 2,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(fa, fb)
-
-
-def _envelope_dual_combine_kernel(
-    axis: int, n: int, ka: int, kb: int, check_every: int,
-    res_ref, da_ref, db_ref, out_ref,
-):
-    """Final-axis dual envelope with the signed combine fused as epilogue:
-    writes ONE f32 signed-distance block instead of two i32 d^2 blocks,
-    eliminating the separate combine kernel's full-volume read/write pair
-    (reference combine: sdf_generation.hpp:242-268). The float math is the
-    exact op sequence of `edt.d2_to_distance(a)-d2_to_distance(b)`
-    (sqrt(f32(d2))*res per field, INF sentinel -> +/-inf), so results are
-    bitwise identical to the unfused path."""
-    d_a = _relax_to_envelope(da_ref[:], axis, n, ka, check_every)
-    d_b = _relax_to_envelope(db_ref[:], axis, n, kb, check_every)
-    res = res_ref[0]
-    va = jnp.sqrt(jnp.where(d_a >= INF_D2, jnp.inf, d_a.astype(jnp.float32)))
-    vb = jnp.sqrt(jnp.where(d_b >= INF_D2, jnp.inf, d_b.astype(jnp.float32)))
-    out_ref[:] = va * res - vb * res
-
-
-@functools.partial(
-    jax.jit, static_argnames=("interpret", "ka", "kb", "check_every")
-)
-def envelope_dual_combine_pallas(
-    fa: jax.Array, fb: jax.Array, resolution, interpret: bool = False,
-    ka: int | None = None, kb: int | None = None,
-    check_every: int | None = None,
-) -> jax.Array:
-    """f32 signed distances from the two axis-1-enveloped d^2 fields: runs
-    the final axis-2 envelope on both AND the signed combine in one kernel
-    (see `_envelope_dual_combine_kernel`). `resolution` is a scalar."""
-    if ka is None:
-        ka = _ENVELOPE_K
-    if kb is None:
-        kb = _ENVELOPE_K_FREE
-    if check_every is None:
-        check_every = 1
-    if fa.shape != fb.shape:
-        raise ValueError((fa.shape, fb.shape))
-    X, Y, Z = fa.shape
-    res = jnp.asarray(resolution, jnp.float32).reshape(1)
-    if Z == 1 or (Y == 1 and X > 1):
-        # degenerate layouts reshape in the plain dual kernel; combine in
-        # XLA via the canonical d2_to_distance (cycle-safe: edt imports
-        # this module lazily)
-        from . import edt as _edt
-
-        oa, ob = envelope_dual_pallas(fa, fb, 2, interpret, ka, kb, check_every)
-        return _edt.d2_to_distance(oa, res[0]) - _edt.d2_to_distance(ob, res[0])
-    yt = 8 if Y % 8 == 0 else Y
-    xt = _pick_tile(X, max(1, _BLOCK_BYTES // (yt * Z * 4)))
-    grid = (X // xt, Y // yt)
-    block = (xt, yt, Z)
-    index_map = lambda i, j: (i, j, 0)
-    spec = pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
-    kernel = functools.partial(
-        _envelope_dual_combine_kernel, 2, Z, ka, kb, check_every
-    )
-    phys_bytes = 4 * xt * max(8, yt) * Z
-    kmax = max(ka, kb)
-    vmem_bytes = min(
-        100 * 1024 * 1024,
-        max(24 * 1024 * 1024, phys_bytes * 2 * (8 + 2 * kmax)),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            spec,
-            spec,
-        ],
-        out_specs=spec,
-        out_shape=_out_struct(fa, fa.shape, jnp.float32),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(res, fa, fb)
-
-
-def _line_pass_dual_kernel(n: int, square: bool, mask_ref, outa_ref, outb_ref):
-    """Both binary line passes (seeds = mask, seeds = ~mask) from ONE mask
-    read. The pass is LATENCY-bound (n sequential one-row steps at ~125 ns
-    regardless of row width — see `_line_pass_kernel`), so folding the
-    second field into the same sequential sweeps is nearly free: ~half the
-    cost of two separate passes, and the mask is read from HBM once.
-    ``square`` selects d^2/INF_D2 vs linear/1<<24 output (same convention
-    as `_line_pass_kernel`; the sharded boundary combine needs linear)."""
-    BIG = n
-    m = mask_ref[:] != 0
-    outa_ref[:] = jnp.where(m, 0, BIG)
-    outb_ref[:] = jnp.where(m, BIG, 0)
-
-    def fwd(t, _):
-        outa_ref[t] = jnp.minimum(outa_ref[t], outa_ref[t - 1] + 1)
-        outb_ref[t] = jnp.minimum(outb_ref[t], outb_ref[t - 1] + 1)
-        return 0
-
-    lax.fori_loop(1, n, fwd, 0)
-
-    def bwd(k, _):
-        t = n - 2 - k
-        outa_ref[t] = jnp.minimum(outa_ref[t], outa_ref[t + 1] + 1)
-        outb_ref[t] = jnp.minimum(outb_ref[t], outb_ref[t + 1] + 1)
-        return 0
-
-    lax.fori_loop(0, n - 1, bwd, 0)
-    da = outa_ref[:]
-    db = outb_ref[:]
-    if square:
-        outa_ref[:] = jnp.where(da >= BIG, INF_D2, da * da)
-        outb_ref[:] = jnp.where(db >= BIG, INF_D2, db * db)
+    flat = [f.astype(jnp.int32).reshape(-1) for f in fields]
+    if combine:
+        out_shape = _out_struct(fields[0], (size,), jnp.float32)
+        args = [jnp.asarray(resolution, jnp.float32).reshape(1)] + flat
     else:
-        outa_ref[:] = jnp.where(da >= BIG, 1 << 24, da)
-        outb_ref[:] = jnp.where(db >= BIG, 1 << 24, db)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "square"))
-def line_pass_dual_pallas(
-    mask: jax.Array, interpret: bool = False, square: bool = True
-):
-    """(d2_mask_seeds, d2_complement_seeds): squared line distances along
-    axis 0 to the True set and to the False set, from one mask read; linear
-    with the 1<<24 sentinel when ``square=False`` (sharded combine)."""
-    X, Y, Z = mask.shape
-    if Z == 1 and Y > 1:
-        oa, ob = line_pass_dual_pallas(mask.reshape(X, 1, Y), interpret, square)
-        return oa.reshape(X, Y, 1), ob.reshape(X, Y, 1)
-    zt = _lane_tile(Z)
-    yt_target = max(1, _LINE_BLOCK_BYTES // (2 * X * zt * 4))
-    if Y % 8 == 0 and yt_target >= 8:
-        yt = _pick_tile(Y // 8, yt_target // 8) * 8
-    else:
-        yt = Y if Y < 8 or Y % 8 != 0 else 8
-    grid = (Y // yt, Z // zt)
-    block = (X, yt, zt)
-    index_map = lambda i, j: (0, i, j)
-    kernel = functools.partial(_line_pass_dual_kernel, X, square)
-    spec = pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
-    # 1 in + 2 out double-buffered + row temporaries ~ 12 live block copies
-    # (measured 1.54M needed at a 131K block — the 2D image path); keep the
-    # same 24MB floor as the envelope kernels so small blocks never hit the
-    # default 1.25M scoped stack
-    vmem_bytes = min(
-        100 * 1024 * 1024, max(24 * 1024 * 1024, 16 * X * yt * zt * 4)
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[spec],
-        out_specs=[spec, spec],
-        out_shape=[_out_struct(mask, mask.shape, jnp.int32)] * 2,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(mask.astype(jnp.int32))
-
-
-def _envelope_carry_kernel(
-    axis: int, n: int, n_payload: int, k: int, check_every: int, *refs
-):
-    """Envelope relaxation carrying `n_payload` payload registers per cell.
-
-    Payloads are INHERITED along winning relaxation chains: whenever a
-    cell's d improves from a neighbor's candidate, every payload register
-    copies that neighbor's payload. Initializing a payload with the
-    per-axis iota yields the winning source index (argmin); initializing it
-    with an earlier pass's feature map composes features ACROSS passes with
-    zero gathers (the winner's payload is physically carried to the cell,
-    so no post-pass `payload[winner]` lookup is needed — scattered 134M
-    gathers measured 5.4 s/transform at 512^3, ~10x the passes themselves).
-
-    Runs the same generalized (2k+1)-tap schedule as `_envelope_kernel`
-    (NOTES §14a/§15): within a step every tap reads the start-of-step
-    field; the payload accumulator tracks the argmin tap (any witness of
-    the min is a valid winner). Quiescence exit unchanged: payloads can
-    only change when d improves, so d-quiescence also certifies the
-    payload maps. The reference keeps its `closest_point` inside the
-    propagation state the same way (sdf_generation.hpp:19-27).
-    """
-    d_ref = refs[0]
-    payload_in = refs[1 : 1 + n_payload]
-    out_ref = refs[1 + n_payload]
-    payload_out = refs[2 + n_payload :]
-    d0 = d_ref[:]
-    p0 = tuple(r[:] for r in payload_in)
-    idx = lax.broadcasted_iota(jnp.int32, d0.shape, axis)
-
-    def cond(state):
-        t, _, _, done = state
-        return jnp.logical_and(jnp.logical_not(done), (t - 1) * k <= n)
-
-    def body(state):
-        t, d, ps, _ = state
-
-        def one(j, carry):
-            dd, pp = carry
-            tt = t + j
-            acc_d = dd
-            acc_p = pp
-            for s in range(1, k + 1):
-                c = s * s + 2 * s * k * (tt - 1)
-                up = _roll_shift(dd, axis, s, n, idx < s)
-                dn = _roll_shift(dd, axis, -s, n, idx >= n - s)
-                cand = jnp.minimum(up, dn) + c
-                take_up = up <= dn
-                win = cand < acc_d
-                acc_d = jnp.minimum(acc_d, cand)
-                # rolled-in payloads are only selected where the matching d
-                # roll is finite (masked rolls carry INF_D2, never winning)
-                acc_p = tuple(
-                    jnp.where(
-                        win,
-                        jnp.where(
-                            take_up,
-                            _pvary_like(pltpu.roll(q, shift=s % n, axis=axis), q),
-                            _pvary_like(pltpu.roll(q, shift=(-s) % n, axis=axis), q),
-                        ),
-                        a,
-                    )
-                    for q, a in zip(pp, acc_p)
-                )
-            return acc_d, acc_p
-
-        new_d, new_ps = lax.fori_loop(0, check_every, one, (d, ps))
-        done = jnp.all(new_d == d)
-        return t + check_every, new_d, new_ps, done
-
-    _, d_final, p_final, _ = lax.while_loop(
-        cond, body, (jnp.int32(1), d0, p0, jnp.array(False))
-    )
-    out_ref[:] = d_final
-    for r, p in zip(payload_out, p_final):
-        r[:] = p
-
-
-@functools.partial(
-    jax.jit, static_argnames=("axis", "interpret", "k", "check_every")
-)
-def envelope_carry_pallas(
-    f: jax.Array, payloads, axis: int, interpret: bool = False,
-    k: int | None = None, check_every: int | None = None,
-):
-    """(out, *carried): exact envelope along `axis` (1 or 2) plus each
-    payload array inherited along the winning chains (see kernel doc).
-    Block sizes shrink with the number of live registers."""
-    if k is None:
-        k = _ENVELOPE_K
-    if check_every is None:
-        check_every = max(1, _CHECK_EVERY // k)
-    payloads = tuple(payloads)
-    X, Y, Z = f.shape
-    n = f.shape[axis]
-    if n == 1:
-        return (f,) + payloads
-    if axis == 1 and Z == 1:
-        outs = envelope_carry_pallas(
-            f.reshape(X, 1, Y), tuple(p.reshape(X, 1, Y) for p in payloads),
-            2, interpret, k, check_every,
-        )
-        return tuple(o.reshape(X, Y, 1) for o in outs)
-    n_arrays = 1 + len(payloads)
-    block_bytes = max(_BLOCK_BYTES // n_arrays, 64 * 1024)
-    if axis == 1:
-        zt = _lane_tile(Z)
-        xt = _pick_tile(X, max(1, block_bytes // (Y * zt * 4)))
-        grid = (X // xt, Z // zt)
-        block = (xt, Y, zt)
-        index_map = lambda i, j: (i, 0, j)
-    elif axis == 2:
-        yt = 8 if Y % 8 == 0 else Y
-        xt = _pick_tile(X, max(1, block_bytes // (yt * Z * 4)))
-        grid = (X // xt, Y // yt)
-        block = (xt, yt, Z)
-        index_map = lambda i, j: (i, j, 0)
-    else:
-        raise ValueError("envelope_carry_pallas supports axis 1 or 2")
-
-    spec = pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
-    kernel = functools.partial(
-        _envelope_carry_kernel, axis, n, len(payloads), k, check_every
-    )
-    # scoped-VMEM headroom: see envelope_pass_pallas (per-array block plus
-    # k-scaled roll/candidate temporaries across 1 + n_payload arrays)
-    blk_bytes = 4 * block[0] * max(8, block[1]) * block[2]
-    vmem_bytes = min(
-        100 * 1024 * 1024,
-        max(24 * 1024 * 1024, blk_bytes * n_arrays * (6 + 2 * k)),
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[spec] * n_arrays,
-        out_specs=[spec] * n_arrays,
-        out_shape=[_out_struct(f, f.shape, jnp.int32)] * n_arrays,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(f, *(p.astype(jnp.int32) for p in payloads))
-    return tuple(outs)
-
-
-@functools.partial(jax.jit, static_argnames=("axis", "interpret"))
-def envelope_argmin_pallas(f: jax.Array, axis: int, interpret: bool = False):
-    """(out, j): exact envelope along `axis` plus winning source index per
-    cell — the single-payload case of `envelope_carry_pallas` with an iota
-    payload."""
-    if f.shape[axis] == 1:
-        return f, jnp.zeros(f.shape, jnp.int32)
-    j0 = lax.broadcasted_iota(jnp.int32, f.shape, axis)
-    out, j = envelope_carry_pallas(f, (j0,), axis, interpret)
-    return out, j
-
-
-def _segsum_axis0_kernel(n: int, g_ref, w_ref, out_ref):
-    """out[j, y, z] = sum_i g[i, y, z] * [w[i, y, z] == j] along axis 0.
-
-    The adjoint of a winner-indexed gather (out[i] = prev[win[i]]) is a
-    per-line segment sum into the winners. A scattered XLA scatter-add rides
-    the ~85 M updates/s HBM-transaction wall (docs/NOTES.md §13a); here the
-    whole line lives on the block's MAJOR dim, so each of the n steps is a
-    fully-vectorized one-hot accumulate (compare + select-add over the
-    block) with a cheap major-dim row read — no scatters, no gathers. Work
-    is O(n) per cell (n steps x full block) but runs at VPU throughput.
-    """
-    iota0 = lax.broadcasted_iota(jnp.int32, out_ref.shape, 0)
-
-    def body(i, acc):
-        gi = g_ref[i]  # [yt, zt] row, broadcast over the major dim
-        wi = w_ref[i]
-        hit = iota0 == wi[None]
-        return jnp.where(hit, acc + gi[None], acc)
-
-    out_ref[:] = lax.fori_loop(
-        0, n, body, jnp.zeros(out_ref.shape, out_ref.dtype)
-    )
-
-
-_SEGSUM_CHUNK = 8  # input steps batched per window pass
-_SEGSUM_WIN = 64  # output-row window height per update
-
-
-def _segsum_windowed_kernel(n: int, g_ref, w_ref, out_ref):
-    """Windowed variant of `_segsum_axis0_kernel` for MONOTONE winner maps.
-
-    The EDT winner maps are monotone non-decreasing along the line, so the
-    rows hit by an input chunk [i0, i0+C) lie in the contiguous window
-    [min w, max w] — and the windows telescope: sum of spans <= n + spread.
-    Each chunk updates only ceil(span/W) W-row windows instead of all n
-    rows; measured at 512^3 this is the difference between 203 ms and
-    ~O(spread) ms per pass. Correct for ANY winner map (non-monotone maps
-    just degrade to more windows).
-    """
-    C, W = _SEGSUM_CHUNK, _SEGSUM_WIN
-    yt, zt = out_ref.shape[1], out_ref.shape[2]
-    out_ref[:] = jnp.zeros(out_ref.shape, out_ref.dtype)
-    rows0 = lax.broadcasted_iota(jnp.int32, (W, yt, zt), 0)
-
-    def chunk(c, _):
-        i0 = c * C
-        gi = g_ref[pl.ds(i0, C)]  # [C, yt, zt]
-        wi = w_ref[pl.ds(i0, C)]
-        lo = jnp.clip(jnp.min(wi), 0, n - 1)
-        hi = jnp.minimum(jnp.max(wi), n - 1) + 1  # exclusive
-        # W-ALIGNED windows: they tile [0, n) exactly (W | n), so no window
-        # exceeds the block (pl.ds would silently clamp-shift) and no row is
-        # visited twice per chunk (which would double-count hits)
-        lo_aligned = (lo // W) * W
-
-        def win_cond(base):
-            return base < hi
-
-        def win_body(base):
-            rows = rows0 + base
-            acc = out_ref[pl.ds(base, W)]
-            for k in range(C):
-                hit = rows == wi[k][None]
-                acc = jnp.where(hit, acc + gi[k][None], acc)
-            out_ref[pl.ds(base, W)] = acc
-            return base + W
-
-        lax.while_loop(win_cond, win_body, lo_aligned)
-        return 0
-
-    lax.fori_loop(0, n // C, chunk, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("axis", "interpret"))
-def winner_segment_sum_pallas(
-    g: jax.Array, win: jax.Array, axis: int, interpret: bool = False
-) -> jax.Array:
-    """out[..., j, ...] = sum over i along `axis` of g where win == j.
-
-    Exact adjoint of the per-axis winner gather `out[i] = prev[..., win[i],
-    ...]` used by the feature-transform composition; see
-    `_segsum_axis0_kernel`. The reduction axis is moved to the array-major
-    position (an XLA transpose, ~HBM-bandwidth) so the kernel's inner loop
-    indexes whole rows instead of lanes.
-    """
-    if g.shape != win.shape:
-        raise ValueError((g.shape, win.shape))
-    n = g.shape[axis]
-    if n == 1:
-        return g
-    gm = jnp.moveaxis(g, axis, 0)
-    wm = jnp.moveaxis(win, axis, 0).astype(jnp.int32)
-    shape = gm.shape
-    flat = gm.reshape(n, -1)
-    wflat = wm.reshape(n, -1)
-    M = flat.shape[1]
-    # pad the minor dim to a lane multiple; padded lanes carry win=-1 (no hit)
-    zt = 128 if M >= 128 else M
-    pad = (-M) % zt
-    if pad:
-        flat = jnp.pad(flat, ((0, 0), (0, pad)))
-        wflat = jnp.pad(wflat, ((0, 0), (0, pad)), constant_values=-1)
-    Mp = M + pad
-    cols = Mp // zt
-    g3 = flat.reshape(n, cols, zt)
-    w3 = wflat.reshape(n, cols, zt)
-    # ~2MB g-block (4 live arrays: g, w, acc carry, out); the sublane dim
-    # must be a multiple of 8 (or the full axis), so at large n the block
-    # floor is 8 rows — still < 1/4 of VMEM at n=1024
-    yt_target = max(8, 2 * 1024 * 1024 // (n * zt * 4))
-    if cols % 8 == 0:
-        yt = _pick_tile(cols // 8, yt_target // 8) * 8
-    else:
-        yt = cols  # full axis (small/odd shapes)
-    block = (n, yt, zt)
-    grid = (cols // yt,)
-    spec = pl.BlockSpec(block, lambda i: (0, i, 0), memory_space=pltpu.VMEM)
-    if n % _SEGSUM_CHUNK == 0 and n % _SEGSUM_WIN == 0 and n > _SEGSUM_WIN:
-        kernel = functools.partial(_segsum_windowed_kernel, n)
-    else:
-        kernel = functools.partial(_segsum_axis0_kernel, n)
+        out_shape = [_out_struct(f, (size,), jnp.int32) for f in fields]
+        args = flat
     out = pl.pallas_call(
         kernel,
+        out_shape=out_shape,
         grid=grid,
-        in_specs=[spec, spec],
-        out_specs=spec,
-        out_shape=_out_struct(g, g3.shape, g.dtype),
-        # ~9 live block copies (g+w+out double-buffered, acc carry, iota,
-        # where temporaries); measured 17.8MB actual at a 2MB block
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=min(100 * 1024 * 1024, 16 * n * yt * zt * 4)
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=NUM_WARPS if num_warps is None else num_warps, num_stages=1
         ),
         interpret=interpret,
-    )(g3, w3)
-    out = out.reshape(n, Mp)[:, :M].reshape(shape)
-    return jnp.moveaxis(out, 0, axis)
+        name=f"sdf_envelope_{len(fields)}f{'_combine' if combine else ''}",
+    )(*args)
+    if combine:
+        return out.reshape(shape)
+    return tuple(o.reshape(shape) for o in out)
 
 
-def _pick_tile(total: int, target: int) -> int:
-    """Largest divisor of `total` that is <= target."""
-    t = min(target, total)
-    while total % t != 0:
-        t -= 1
-    return t
+_STATIC = ("interpret", "tile", "shifts", "num_warps")
 
 
-def _lane_tile(Z: int) -> int:
-    """Lane-dim (minor) block size: a multiple of 128 or the full axis."""
-    return 128 if Z % 128 == 0 else Z
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "axis", "interpret", "k", "pad", "check_every", "tree", "hoist"
-    ),
-)
+@functools.partial(jax.jit, static_argnames=("axis",) + _STATIC)
 def envelope_pass_pallas(
-    f: jax.Array,
-    axis: int,
-    interpret: bool = False,
-    k: int | None = None,
-    pad: bool | None = None,
-    check_every: int | None = None,
-    tree: bool = False,
-    hoist: bool = False,
+    f: jax.Array, axis: int, interpret: bool = False,
+    tile: int | None = None, shifts: int | None = None,
+    num_warps: int | None = None,
 ) -> jax.Array:
-    """Exact envelope transform along `axis` (1 or 2) of a 3D int32 array.
-
-    ``k`` is the tap width of the generalized (2k+1)-tap schedule (module
-    default `_ENVELOPE_K`); ``pad`` selects the INF-pad kernel variant over
-    per-tap edge masks; ``check_every`` is the number of relaxation steps
-    per quiescence reduce (defaults keep the check granularity at ~8 units
-    of DISTANCE independent of k).
-    """
-    if k is None:
-        k = _ENVELOPE_K
-    if pad is None:
-        pad = _ENVELOPE_PAD
-    if check_every is None:
-        check_every = max(1, _CHECK_EVERY // k)
-    X, Y, Z = f.shape
-    n = f.shape[axis]
-    if n == 1:
+    """Exact envelope transform of ``f`` along ``axis`` (any axis, any rank)."""
+    if f.shape[axis] == 1:
         return f
-    if axis == 1 and Z == 1:
-        # 2D grids: [X, Y, 1] is memory-identical to [X, 1, Y]; run the
-        # lane-dim kernel instead (sublane rolls with a single lane crash
-        # the Mosaic compiler)
-        out = envelope_pass_pallas(
-            f.reshape(X, 1, Y), 2, interpret, k, pad, check_every, tree, hoist
-        )
-        return out.reshape(X, Y, 1)
-    if axis == 2 and Y == 1 and X > 1:
-        # [X, 1, Z] is memory-identical to [1, X, Z]; a 1-sublane block pads
-        # 8x physically, which blew the scoped-VMEM budget at larger k
-        out = envelope_pass_pallas(
-            f.reshape(1, X, Z), 2, interpret, k, pad, check_every, tree, hoist
-        )
-        return out.reshape(X, 1, Z)
-    # pad to the native tiling granularity of the scanned dim (sublane 8 /
-    # lane 128); the pad must cover the widest tap
-    if pad:
-        unit = 8 if axis == 1 else 128
-        pad_n = ((max(k, 1) + unit - 1) // unit) * unit
-    else:
-        pad_n = 0
-    if axis == 1:
-        # scanned axis on sublanes: block [xt, Y, zt]
-        zt = _lane_tile(Z)
-        # Pallas double-buffers in+out and the while carry keeps ~2 more
-        # copies live; keep the block small enough for ~12 copies in VMEM.
-        xt = _pick_tile(X, max(1, _BLOCK_BYTES // (Y * zt * 4)))
-        grid = (X // xt, Z // zt)
-        block = (xt, Y, zt)
-        index_map = lambda i, j: (i, 0, j)
-    elif axis == 2:
-        # scanned axis on lanes: block [xt, yt, Z]; second-to-last block dim
-        # must be a multiple of 8 or the full axis
-        yt = 8 if Y % 8 == 0 else Y
-        xt = _pick_tile(X, max(1, _BLOCK_BYTES // (yt * Z * 4)))
-        grid = (X // xt, Y // yt)
-        block = (xt, yt, Z)
-        index_map = lambda i, j: (i, j, 0)
-    else:
-        raise ValueError("envelope_pass_pallas supports axis 1 or 2")
+    (out,) = _call((f,), axis, interpret, tile, shifts, num_warps)
+    return out
 
-    kernel = functools.partial(
-        _envelope_kernel, axis, n, k, check_every, pad_n, tree, hoist
+
+@functools.partial(jax.jit, static_argnames=("axis",) + _STATIC)
+def envelope_dual_pallas(
+    fa: jax.Array, fb: jax.Array, axis: int, interpret: bool = False,
+    tile: int | None = None, shifts: int | None = None,
+    num_warps: int | None = None,
+):
+    """(out_a, out_b): exact envelopes of two fields along ``axis`` from one
+    kernel launch; identical to two ``envelope_pass_pallas`` calls."""
+    if fa.shape[axis] == 1:
+        return fa, fb
+    return _call((fa, fb), axis, interpret, tile, shifts, num_warps)
+
+
+@functools.partial(jax.jit, static_argnames=_STATIC)
+def envelope_dual_combine_pallas(
+    fa: jax.Array, fb: jax.Array, resolution, interpret: bool = False,
+    tile: int | None = None, shifts: int | None = None,
+    num_warps: int | None = None,
+) -> jax.Array:
+    """f32 signed distances: the last-axis envelope of both d^2 fields with
+    the signed combine ``sqrt(a)*res - sqrt(b)*res`` as the epilogue
+    (``resolution`` is a scalar; INF_D2 maps to +/-inf)."""
+    if fa.shape[-1] == 1:
+        from . import edt
+
+        res = jnp.asarray(resolution, jnp.float32)
+        return edt.d2_to_distance(fa, res) - edt.d2_to_distance(fb, res)
+    return _call(
+        (fa, fb), -1, interpret, tile, shifts, num_warps, resolution=resolution
     )
-    # scoped-VMEM headroom: ~6 live block copies (in/out double-buffered +
-    # carry) plus transient roll/candidate registers that scale with k; the
-    # physical block rounds the sublane dim up to 8
-    phys_block = list(block)
-    phys_block[1] = max(8, phys_block[1])
-    phys_bytes = 4 * phys_block[0] * phys_block[1] * phys_block[2]
-    vmem_bytes = min(
-        100 * 1024 * 1024,
-        max(24 * 1024 * 1024, phys_bytes * (8 + 2 * k + (2 * k if hoist else 0))),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM),
-        out_shape=_out_struct(f, f.shape, jnp.int32),
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=vmem_bytes),
-        interpret=interpret,
-    )(f)

@@ -1,6 +1,6 @@
 """2D image SDF: the standalone image->SDF pipeline.
 
-TPU-native equivalent of the reference's ``image_2d_sdf_node``
+JAX equivalent of the reference's ``image_2d_sdf_node``
 (``/root/reference/src/image_2d_sdf_node.cpp``): a binary image produces a
 two-channel float field (|d+| distance to filled, |d-| distance to free, in
 PIXELS — no resolution scaling, ``:100-117``), the combined signed field,

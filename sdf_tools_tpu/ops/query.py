@@ -1,6 +1,6 @@
 """Differentiable SDF query layer.
 
-TPU-native re-design of the reference's query functions
+JAX re-design of the reference's query functions
 (``/root/reference/include/sdf_tools/sdf.hpp``):
 
   * ``estimate_distance``: trilinear interpolation over center-corrected cell
@@ -45,10 +45,9 @@ Array = jax.Array
 def _flat_gather(values: Array, ix: Array, iy: Array, iz: Array) -> Array:
     """values[ix, iy, iz] via a flat 1-D gather.
 
-    CRITICAL for performance: XLA:TPU lowers multi-dimensional advanced
-    indexing into whole-slice materialization (measured ~46 M gathers/s and
-    OOM-scale intermediates at 1M queries), while flat minor-dim gathers run
-    at ~70 G elem/s. All hot query paths must go through here.
+    Multi-dimensional advanced indexing can lower to whole-slice
+    materialization; one flat gather per query point cannot. All hot query
+    paths go through here.
     """
     _, ny, nz = values.shape
     flat_idx = (ix * ny + iy) * nz + iz
@@ -282,7 +281,7 @@ def full_gradient(
     arbitrary ``GradientFunction`` parameter. Called as
     ``gradient_function(sdf, indices, enable_edge_gradients)`` with the dense
     [nx, ny, nz, 3] integer index grid; must return [nx, ny, nz, 3]
-    world-frame gradients (batched — the TPU-native analogue of the
+    world-frame gradients (batched — the JAX analogue of the
     reference's per-cell callback). None -> the built-in finite-difference
     rule below (the only rule the reference ecosystem ever passes).
     """

@@ -1,7 +1,7 @@
 """Topology ops: connected components, surfaces, holes/voids, watershed
 extrema, convex segmentation.
 
-TPU-native re-design of the reference's ``topology_computation.hpp`` and the
+JAX re-design of the reference's ``topology_computation.hpp`` and the
 related CollisionMap/SDF member functions. The reference uses serial BFS
 flood fill (``topology_computation.hpp:25-149``) and memoized serial gradient
 walks (``sdf.cpp:23-207``); both are reformulated as bounded iterative

@@ -27,7 +27,7 @@ def voxelize_points(points: Array, meta: GridMeta, weights: Array | None = None)
     idx = meta.location_to_index(p)  # floor((world->grid)/res)
     in_bounds = meta.index_in_bounds(idx)
     nx, ny, nz = meta.shape
-    # flat scatter (TPU lowers multi-dim scatters poorly); OOB -> dropped
+    # flat scatter (1-D indexing); OOB -> dropped
     flat_idx = (idx[..., 0] * ny + idx[..., 1]) * nz + idx[..., 2]
     flat_idx = jnp.where(in_bounds, flat_idx, -1)
     occ = jnp.zeros(nx * ny * nz, jnp.float32)
@@ -129,7 +129,7 @@ def mesh_to_occupancy(
 ) -> Array:
     """Solid-voxelize a watertight triangle mesh: occupancy [nx, ny, nz] f32.
 
-    TPU-native replacement for the last ingestion path of the reference's
+    JAX replacement for the last ingestion path of the reference's
     ``SDF_Builder`` (arbitrary MoveIt collision meshes voxelized by per-voxel
     ``checkCollision``, ``sdf_builder.cpp:339-358``): point-in-mesh by RAY
     PARITY, fully vectorized — for every (x, y) column of cell centers, each

@@ -20,9 +20,9 @@ Launch recipe (one command per host/process):
                                     jnp.bool_, my_slab_loader)
     ...
 
-On TPU pods the coordinator/process env vars are auto-populated by the
-launcher, so ``runtime.initialize()`` with no args is enough. On CPU/GPU
-clusters set the three env vars (or pass them explicitly).
+Nothing sets the coordinator/process env vars for you: set the three env
+vars (or pass them explicitly). ``JAX_COORDINATOR`` may be
+``localhost:<port>`` for several processes on one machine.
 """
 from __future__ import annotations
 
@@ -39,10 +39,7 @@ _initialized = False
 
 def is_multiprocess_env() -> bool:
     """True when the environment requests multi-process JAX."""
-    if os.environ.get("JAX_NUM_PROCESSES") not in (None, "", "1"):
-        return True
-    # TPU pod launchers set these
-    return bool(os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"))
+    return os.environ.get("JAX_NUM_PROCESSES") not in (None, "", "1")
 
 
 def initialize(

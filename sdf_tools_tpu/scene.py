@@ -1,6 +1,6 @@
 """Scene builder: geometric primitives -> occupancy -> SDF, with caching.
 
-TPU-native analogue of ``SDF_Builder`` (``/root/reference/include/sdf_tools/
+JAX analogue of ``SDF_Builder`` (``/root/reference/include/sdf_tools/
 sdf_builder.hpp:23-80`` + ``sdf_builder.cpp``): the reference voxelizes a
 MoveIt PlanningScene by moving a synthetic 3-DoF "sdf_compute_bot" to every
 voxel center and collision-checking (``sdf_builder.cpp:329-363``) — one
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .grid import CollisionMap, GridMeta, SdfGrid, make_origin_transform
+from .grid import CollisionMap, GridMeta, SdfGrid, make_origin_transform, rotate_points
 from .ops import edt
 
 Array = jax.Array
@@ -71,7 +71,7 @@ def _primitive_contains(prim: Primitive, points: Array) -> Array:
     """Boolean containment of world points [..., 3] in the primitive."""
     inv = jnp.asarray(np.linalg.inv(prim.pose), jnp.float32)
     p = jnp.asarray(points)
-    local = p @ inv[:3, :3].T + inv[:3, 3]
+    local = rotate_points(inv[:3, :3], p) + inv[:3, 3]
     if prim.kind == "box":
         half = jnp.asarray(prim.size, jnp.float32) / 2.0
         return jnp.all(jnp.abs(local) <= half, axis=-1)

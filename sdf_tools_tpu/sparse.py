@@ -1,6 +1,6 @@
 """Dynamic spatial-hashed collision map: sparse chunked occupancy.
 
-TPU-native analogue of ``DynamicSpatialHashedCollisionMapGrid``
+JAX analogue of ``DynamicSpatialHashedCollisionMapGrid``
 (``/root/reference/include/sdf_tools/dynamic_spatial_hashed_collision_map.hpp``,
 ``src/sdf_tools/dynamic_spatial_hashed_collision_map.cpp:125-186``): space is
 divided into fixed-size chunks; a chunk is absent, uniformly filled with one
@@ -9,7 +9,7 @@ value (chunk-level set), or a dense cell array (cell-level set).
 Design: the chunk *directory* is a host-side dict (like the reference's
 unordered_map — pure control plane), while chunk payloads are dense jnp
 arrays, so any region of interest can be densified into a ``CollisionMap``
-(``densify_region``) and fed to the TPU EDT/render pipeline. This follows the
+(``densify_region``) and fed to the device EDT/render pipeline. This follows the
 framework rule: irregular pointer structures stay on host, bulk math on
 device.
 """

@@ -1,5 +1,5 @@
 """Drop-in equivalent of the reference's ``sdf_tools.utils_2d``
-(``/root/reference/src/sdf_tools/utils_2d.py``), backed by the TPU engine.
+(``/root/reference/src/sdf_tools/utils_2d.py``), backed by the JAX engine.
 
 Axis convention preserved: ``grid_world[y, x]`` with the SDF returned as
 ``sdf[y, x]`` and gradients as ``grad[y, x, 2]`` (z gradient dropped).

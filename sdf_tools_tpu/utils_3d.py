@@ -1,5 +1,5 @@
 """Drop-in equivalent of the reference's ``sdf_tools.utils_3d``
-(``/root/reference/src/sdf_tools/utils_3d.py``), backed by the TPU engine.
+(``/root/reference/src/sdf_tools/utils_3d.py``), backed by the JAX engine.
 
 Axis quirk preserved: the input environment is indexed ``env[y, x, z]``
 ("Yes, it goes y,x,z", utils_3d.py:22) and outputs transpose back the same

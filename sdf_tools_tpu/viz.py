@@ -1,6 +1,6 @@
 """Visualization exports: colored voxel clouds + PLY writer.
 
-TPU-native replacement for the reference's rviz marker exports (its de-facto
+JAX replacement for the reference's rviz marker exports (its de-facto
 observability surface, SURVEY.md §5). Instead of ROS CUBE_LIST markers, every
 export returns dense ``(centers [N,3] float32, colors [N,4] float32)`` arrays
 (world-frame cell centers and RGBA), filterable by alpha and writable to PLY

@@ -163,7 +163,9 @@ def test_pallas_backend_exact(shape, p):
     """Pallas kernel (interpret mode on CPU) vs brute-force ground truth."""
     rng = np.random.default_rng(hash((shape, int(p * 100))) % (2**31))
     mask = _random_mask(rng, shape, p)
-    ours = np.asarray(edt.squared_edt(jnp.asarray(mask), backend="pallas"))
+    ours = np.asarray(
+        edt.squared_edt(jnp.asarray(mask), backend="pallas", interpret=True)
+    )
     truth = oracle.brute_force_d2(shape, mask)
     np.testing.assert_array_equal(ours, truth)
 
@@ -217,27 +219,28 @@ def test_slabbed_rejects_non_divisible_slab_count():
         edt.signed_field_slabbed(mask, 0.05, n_slabs=3, backend="stencil")
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("pad", [False, True])
-def test_pallas_ktap_envelope_exact(k, pad):
-    """Generalized (2k+1)-tap schedule w_t(s)=s^2+2|s|k(t-1) (NOTES §14a)
-    vs brute force, both kernel layouts (sublane/lane scanned axis), both
-    edge handlings (per-tap masks / single-sided INF pad), incl. shapes not
-    multiples of the tile units and lines shorter than the tap width."""
+@pytest.mark.parametrize("shifts", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("tile", [256, 4096])
+def test_pallas_tile_and_shifts_exact(tile, shifts):
+    """The kernel at other tile sizes and shift counts per quiescence check
+    vs brute force, in both layouts (strided and contiguous scanned axis),
+    incl. shapes that are not powers of two, lines longer than the tile,
+    lines shorter than the shift count, and all-INF lines."""
     from sdf_tools_tpu.ops import edt_pallas
 
-    rng = np.random.default_rng(1000 * k + pad)
-    for shape in [(8, 32, 128), (4, 24, 256), (3, 40, 128), (8, 5, 128), (8, 16, 1)]:
+    rng = np.random.default_rng(1000 * shifts + tile)
+    for shape in [(8, 32, 128), (4, 24, 300), (3, 40, 128), (8, 5, 128), (8, 16, 1)]:
         f = rng.integers(0, 900, shape).astype(np.int32)
         f[rng.random(shape) < 0.6] = int(edt.INF_D2)
+        f[0, 0, :] = int(edt.INF_D2)
         fj = jnp.asarray(f)
-        for axis in (1, 2):
+        for axis in (0, 1, 2):
             if shape[axis] == 1:
                 continue
             truth = np.asarray(edt.envelope_pass_brute(fj, axis))
             got = np.asarray(
                 edt_pallas.envelope_pass_pallas(
-                    fj, axis, interpret=True, k=k, pad=pad
+                    fj, axis, interpret=True, tile=tile, shifts=shifts
                 )
             )
             np.testing.assert_array_equal(got, truth)
@@ -248,9 +251,9 @@ def test_pallas_ktap_envelope_exact(k, pad):
     [(16, 24, 32), (8, 40, 1), (1, 16, 128), (5, 7, 9), (33, 64, 129)],
 )
 def test_pallas_dual_field_fused(shape):
-    """Fused dual-field path (one line pass + one envelope kernel per axis
-    for BOTH signed-extraction fields, NOTES §15) is bit-identical to two
-    separate squared_edt calls, including degenerate/odd shapes."""
+    """The two-field kernel (both signed-extraction fields in one launch
+    per axis) is bit-identical to two separate squared_edt calls, including
+    degenerate/odd shapes."""
     from sdf_tools_tpu.ops import edt_pallas
 
     rng = np.random.default_rng(sum(shape))
@@ -258,55 +261,79 @@ def test_pallas_dual_field_fused(shape):
     if not m.any():
         m.flat[0] = True
     mj = jnp.asarray(m)
-    a1 = edt.squared_edt(mj, "pallas")
-    b1 = edt.squared_edt(~mj, "pallas")
-    fa, fb = edt_pallas.line_pass_dual_pallas(mj, interpret=True)
+    a1 = edt.squared_edt(mj, "stencil")
+    b1 = edt.squared_edt(~mj, "stencil")
+    fa, fb = edt._line_d2(mj, 0), edt._line_d2(~mj, 0)
     fa, fb = edt_pallas.envelope_dual_pallas(fa, fb, 1, interpret=True)
     fa, fb = edt_pallas.envelope_dual_pallas(fa, fb, 2, interpret=True)
     np.testing.assert_array_equal(np.asarray(fa), np.asarray(a1))
     np.testing.assert_array_equal(np.asarray(fb), np.asarray(b1))
-    # the public entry point routes through the same fused path
-    a2, b2 = edt.squared_edt_both(mj, "pallas")
+    # the public entry point routes through the same two-field kernel
+    a2, b2 = edt.squared_edt_both(mj, "pallas", interpret=True)
     np.testing.assert_array_equal(np.asarray(a2), np.asarray(a1))
     np.testing.assert_array_equal(np.asarray(b2), np.asarray(b1))
-    # signed field with the combine fused as the z-pass epilogue: bitwise
+    # signed field with the combine as the z-pass epilogue: bitwise
     # identical to d2_to_distance(a) - d2_to_distance(b)
-    dist, _, _ = edt.signed_field_from_masks(mj, 0.07, "pallas")
+    dist, _, _ = edt.signed_field_from_masks(mj, 0.07, "pallas", interpret=True)
     ref = edt.d2_to_distance(a1, 0.07) - edt.d2_to_distance(b1, 0.07)
     np.testing.assert_array_equal(
         np.asarray(dist).view(np.uint32), np.asarray(ref).view(np.uint32)
     )
 
 
-def test_tiny_grid_backend_guard(monkeypatch):
-    """On real TPUs, grids under _PALLAS_MIN_CELLS run the XLA stencil
-    (tiny/degenerate Mosaic blocks crashed the TPU runtime — round 5,
-    measured on (8,40,1)/(5,7,9)); interpret mode (CPU) keeps the pallas
-    path so the kernels stay covered by tests."""
-    small = jnp.zeros((8, 40, 1), bool)
-    big = jnp.zeros((64, 64, 64), bool)
-    # CPU (this test env): no downgrade, interpret handles every shape
-    assert edt._effective_backend("pallas", small) == "pallas"
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert edt._effective_backend("pallas", small) == "stencil"
-    assert edt._effective_backend("auto", small) == "stencil"
-    assert edt._effective_backend("pallas", big) == "pallas"
-    assert edt._effective_backend("stencil", small) == "stencil"
-    assert edt._effective_backend("reference", small) == "reference"
+def test_resolve_backend_cpu():
+    """CPU: "auto" is the stencil; the kernel runs only interpreted."""
+    assert jax.default_backend() == "cpu"
+    assert edt.resolve_backend("auto") == "stencil"
+    assert edt.resolve_backend("auto", interpret=True) == "stencil"
+    assert edt.resolve_backend("pallas", interpret=True) == "pallas"
+    for exact in ("stencil", "scan", "brute", "reference"):
+        assert edt.resolve_backend(exact) == exact
+    with pytest.raises(ValueError, match="interpret=True"):
+        edt.resolve_backend("pallas")
+    with pytest.raises(ValueError, match="interpret=True"):
+        edt.squared_edt(jnp.zeros((4, 4, 4), bool), backend="pallas")
+
+
+def test_resolve_backend_gpu(monkeypatch):
+    """GPU: "auto" is the compiled kernel; interpret mode is refused."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert edt.resolve_backend("auto") == "pallas"
+    assert edt.resolve_backend("pallas") == "pallas"
+    assert edt.resolve_backend("stencil") == "stencil"
+    with pytest.raises(ValueError, match="interpret"):
+        edt.resolve_backend("pallas", interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        edt.resolve_backend("auto", interpret=True)
+
+
+@pytest.mark.parametrize("platform", ["rocm", "METAL", "neuron"])
+def test_resolve_backend_unknown_platform(monkeypatch, platform):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        edt.resolve_backend("auto")
+
+
+@pytest.mark.parametrize("backend", ["cht", "no_such_backend"])
+def test_removed_or_unknown_envelope_backend_raises(backend):
+    with pytest.raises(ValueError, match=backend):
+        edt.squared_edt(jnp.zeros((4, 4, 4), bool), backend=backend)
 
 
 @pytest.mark.parametrize(
     "shape", [(100, 90, 60), (33, 130, 7), (256, 100, 1), (65, 64, 129)]
 )
 def test_pallas_odd_shapes(shape):
-    """Mosaic tiling-constraint coverage: 2D grids, non-128 lanes, odd dims
-    (these crashed or mis-tiled before the lane-tile/reshape fixes)."""
+    """Odd and 2D shapes: line lengths that are not powers of two, a tile
+    holding many short lines, and lines longer than one tile."""
     from sdf_tools_tpu import native
 
     if not native.available():
         pytest.skip("needs the native exact oracle (too big for brute force)")
     rng = np.random.default_rng(5)
     mask = _random_mask(rng, shape, 0.1)
-    ours = np.asarray(edt.squared_edt(jnp.asarray(mask), backend="pallas"))
+    ours = np.asarray(
+        edt.squared_edt(jnp.asarray(mask), backend="pallas", interpret=True)
+    )
     truth = native.edt_exact(mask)
     np.testing.assert_array_equal(ours.astype(np.int64), truth)
